@@ -1,12 +1,12 @@
-"""lane_tracker_tpu: a TPU-native lane detection and tracking framework.
+"""lane_tracker_tpu: a lane detection and tracking framework in JAX.
 
-A ground-up JAX/XLA/Pallas re-design of the classical lane tracking pipeline
+A ground-up JAX/XLA re-design of the classical lane tracking pipeline
 found in pierluigiferrari/lane_tracker (see /root/reference): per-frame camera
 undistortion, bird's-eye perspective warp, adaptive color thresholding and
 morphology, lane-pixel search (sliding-window / band), second-degree
 polynomial fitting, validity checking, temporal smoothing, and overlay
 rendering -- all as pure, fixed-shape, jit-compilable functions that batch
-with `vmap`, sequence with `lax.scan`, and shard across chips with
+with `vmap`, sequence with `lax.scan`, and shard across devices with
 `jax.sharding`.
 
 Top-level API:

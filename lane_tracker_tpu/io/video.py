@@ -3,7 +3,7 @@
 The reference drives its frame loop through MoviePy's ffmpeg subprocess
 pipes (process_video.py:42-44: decode -> process() -> encode).  This module
 provides the same role with three interchangeable backends, all exposing a
-chunked iterator interface sized for the TPU pipeline:
+chunked iterator interface sized for the device pipeline:
 
 * :class:`FfmpegSource`/:class:`FfmpegSink` — raw RGB24 frames over pipes
   to an ``ffmpeg`` binary (gated: used when ffmpeg is on PATH).

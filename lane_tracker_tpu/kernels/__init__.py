@@ -3,11 +3,9 @@ from lane_tracker_tpu.kernels.resample import (
     bilinear_gather,
     bilinear_gather_pair,
 )
-from lane_tracker_tpu.kernels.filter_stage2 import filter_stage_v2
 
 __all__ = [
     "ResampleGrid",
     "bilinear_gather",
     "bilinear_gather_pair",
-    "filter_stage_v2",
 ]

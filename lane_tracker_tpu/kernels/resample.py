@@ -1,18 +1,19 @@
 """Bilinear gather resampling on device.
 
-This is the TPU-native replacement for every per-frame OpenCV resampling in
+This is the device replacement for every per-frame OpenCV resampling in
 the reference: ``cv2.undistort`` (lane_tracker.py:832), the bird's-eye
 ``cv2.warpPerspective`` (lane_tracker.py:834, 1035) and the overlay unwarp
 (lane_tracker.py:650).  The host precomputes a sampling grid once
 (lane_tracker_tpu.calib); at runtime a frame costs exactly ONE gather:
 
-TPU gathers are expensive per index, so the four bilinear taps are packed
-into a single uint32 word per source pixel (the 2x2 neighborhood packed as
-bytes via three shifted ORs — cheap VPU work) and fetched with one
-``jnp.take``.  At image borders the 2x2 packing window is clipped inward
-and the host remaps each in-bounds tap's weight onto the matching window
-slot, so results stay bit-identical to the four-tap formulation (measured
-~3x faster than four separate gathers, ~17x faster than unbatched).
+The four bilinear taps are packed into a single uint32 word per source
+pixel (the 2x2 neighborhood packed as bytes via three shifted ORs) and
+fetched with one ``jnp.take``, so a frame costs one gathered index per
+destination pixel instead of four.  At image borders the 2x2 packing
+window is clipped inward and the host remaps each in-bounds tap's weight
+onto the matching window slot, so results stay bit-identical to the
+four-tap formulation.  The layout was chosen on another device; whether
+it beats a plain four-tap gather on this one is not yet measured.
 
 Arithmetic matches OpenCV: 'fixed' grids reproduce the classic fixed-point
 remap (1/32-px coordinates, 2^15 weights, round-half-up) bit-for-bit —

@@ -1,11 +1,8 @@
-"""Tile-structured resampling as slice gathers + one-hot MXU contractions.
+"""Tile-structured resampling as slice gathers + one-hot matmul contractions.
 
-The per-pixel packed gather in resample.py is the right shape for big
-batches (the frame axis rides the 128-lane minor dim), but a SINGLE
-frame's gather degenerates: XLA prices each of the ~1.2M scalar indices
-individually, and the T=1 chunk's warp measured 44 of its 45.9 ms there
-(scripts/latency_bisect.py; the round-5 lax.map change moved the cost
-from a padded tiny-batch vmap to an equally slow unbatched gather).
+The per-pixel packed gather in resample.py is shaped for big batches,
+but a SINGLE frame's gather prices each of its ~1.2M scalar indices
+individually.
 
 This module exploits the structure the per-pixel gather ignores: real
 rectification/undistortion maps are SMOOTH, so the source pixels feeding
@@ -19,7 +16,7 @@ tile).  Resampling then decomposes into, per (row, tile):
      vmapped dynamic_slice, i.e. a gather of ~40k contiguous slabs
      instead of ~1.2M scalars;
   2. an exact in-slab tap selection taps[i] = slab[r[i], k[i]], phrased
-     as a one-hot matmul so the MXU does the data movement.  One-hot
+     as a one-hot matmul so the matrix units do the data movement.  One-hot
      bf16 x values <= 255 (exact in bf16) accumulated in f32 with
      exactly one nonzero term per output is EXACT — the four taps equal
      the per-pixel gather's taps bit for bit, and the shared
@@ -28,9 +25,9 @@ tile).  Resampling then decomposes into, per (row, tile):
      construction (asserted in tests/test_resample.py).
 
 The one-hot tensor costs (Hd, nT, R*(omega-1), tile) bf16 — hundreds of
-MB for the full warp at tile=32 — streamed once per frame: ~0.5 ms of
-HBM traffic + trivial MXU work replacing a ~35 ms scalar gather in
-latency mode.
+MB for the full warp at tile=32 — streamed once per frame in place of
+the scalar gather.  Whether that wins on this device at small T is not
+yet measured.
 
 Reference semantics carried: cv2.warpPerspective/undistort call sites
 lane_tracker.py:832-834 (via the grids built in calib/).
@@ -157,10 +154,10 @@ def _taps_rowmm(planes: jnp.ndarray, mm: RowMMGrid):
     # win: (Hd, nT, P, R+1, omega)
     om1 = omega - 1
 
-    # bf16 x bf16 -> f32 rides the MXU on TPU; the CPU backend's batched
-    # DotThunk lacks that combination, so contract in f32 there (equally
-    # exact: both dtypes hold 0..255 and the one-hot exactly, and each
-    # output accumulates exactly one nonzero term).
+    # bf16 x bf16 -> f32 on the GPU's tensor cores; the CPU backend's
+    # batched DotThunk lacks that combination, so contract in f32 there
+    # (equally exact: both dtypes hold 0..255 and the one-hot exactly,
+    # and each output accumulates exactly one nonzero term).
     cdt = jnp.float32 if jax.default_backend() == "cpu" else jnp.bfloat16
     oh = mm.onehot.astype(cdt)
 

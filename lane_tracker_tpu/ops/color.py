@@ -225,8 +225,8 @@ def _gamma_poly_f32(img_f32_i):
 def rgb2lab_b_fast(img: jnp.ndarray) -> jnp.ndarray:
     """LAB B-channel via pure f32 arithmetic (no table gathers).
 
-    Per-element LUT gathers cost ~45 ms/frame on TPU; this evaluates the
-    same fixed-point pipeline arithmetically, with the integer descales
+    Evaluates the LUT path's fixed-point pipeline arithmetically instead
+    of through per-element table gathers, with the integer descales
     done in exact f32 integer math (all intermediates < 2^24).  Round 4
     replaced the three pow(2.4) gamma evaluations with a polynomial
     whose f32-Horner rint reproduces the integer gamma LUT EXACTLY on

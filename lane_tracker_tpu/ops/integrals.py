@@ -29,6 +29,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import jax.numpy as jnp
+import numpy as np
 
 
 class RowPrefixes(NamedTuple):
@@ -54,8 +55,6 @@ def _tri_ones_np(W: int):
     """Strictly-lower-triangular ones (W, W+1): T[x', X] = 1 iff x' < X,
     so P = V @ T is the exclusive prefix sum of V along x.  Cached as a
     host array (caching a jnp array would leak tracers under jit)."""
-    import numpy as np
-
     xs = np.arange(W)[:, None]
     Xs = np.arange(W + 1)[None, :]
     return (xs < Xs).astype(np.float32)
@@ -64,18 +63,15 @@ def _tri_ones_np(W: int):
 def build_row_prefixes(binary: jnp.ndarray) -> RowPrefixes:
     """Packed prefix count/x-sum per row of a binary (H, W) uint8 image.
 
-    Computed as three MXU matmuls against a shared triangular ones matrix
-    instead of a lane cumsum: a log-depth cumsum costs ~11 full HBM
-    passes (~0.17 ms/frame measured) while the MXU does the same
-    reduction in a few GFLOP of otherwise-idle matmul.  A two-level
-    block-prefix decomposition (8x fewer FLOPs) was tried in round 3 and
-    LOST on hardware — 0.137-0.197 vs 0.094 ms/frame across block sizes
-    135..540 — because the dense matmul already runs at ~50% MXU
-    utilization while skinny-K/N block matmuls pad badly and add
-    elementwise recombination passes.  Exactness: all inputs are
-    integers <= 255 (x split into high/low bytes), exactly representable
-    in bf16, and the f32 accumulation of <= 1080 such terms is exact
-    (< 2^24).
+    Computed as one bf16 matmul of the stacked (3H, W) count/x-byte
+    planes against a shared triangular ones matrix instead of a cumsum
+    along x: a log-depth cumsum makes ~11 full passes over the frame,
+    while the matmul does the reduction in one.  Which of the two is
+    faster on this device is not yet measured.  Exactness: all inputs
+    are integers <= 255 (x split into high/low bytes), exactly
+    representable in bf16, and the f32 accumulation of <= W such terms
+    is exact (< 2^24) — provided the dot accumulates in f32, which
+    ``preferred_element_type`` requests.
     """
     H, W = binary.shape
     shift = _count_shift(W)
@@ -93,16 +89,28 @@ def build_row_prefixes(binary: jnp.ndarray) -> RowPrefixes:
     return RowPrefixes(packed=packed)
 
 
+def row_prefixes_reference(binary) -> np.ndarray:
+    """Plain numpy reference of ``build_row_prefixes(binary).packed`` for
+    (..., H, W) binaries: the same packing over int64 cumulative sums."""
+    nz = (np.asarray(binary) > 0).astype(np.int64)
+    W = nz.shape[-1]
+    zero = np.zeros(nz.shape[:-1] + (1,), np.int64)
+    cnt = np.concatenate([zero, np.cumsum(nz, axis=-1)], axis=-1)
+    xsum = np.concatenate(
+        [zero, np.cumsum(nz * np.arange(W, dtype=np.int64), axis=-1)],
+        axis=-1)
+    return (xsum << _count_shift(W)) | cnt
+
+
 def interval_moments(pref: RowPrefixes, x_lo, x_hi, row_valid):
     """Per-row (count, x-sum) of nonzero pixels with x in [x_lo, x_hi).
 
     x_lo/x_hi: (H,) int32 (clipped internally); row_valid: (H,) bool.
 
-    The per-row prefix lookups are a mask-and-reduce, NOT
-    ``take_along_axis``: a (H, 1) gather costs ~58 us per scan step on
-    v5e while the equivalent compare+select+row-reduce is a handful of
-    fused VPU passes (~6 us) — this runs inside the sequential back-half
-    scan, so the difference is ~0.05 ms/frame.
+    The per-row prefix lookups are a mask-and-reduce, not
+    ``take_along_axis``: this runs inside the sequential back-half scan,
+    where a compare+select+row-reduce fuses into a few elementwise
+    passes and a (H, 1) gather does not.
     """
     H, Wp1 = pref.packed.shape
     shift = _count_shift(Wp1 - 1)

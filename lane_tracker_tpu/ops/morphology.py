@@ -6,7 +6,7 @@ The reference's filter stage leans on ``cv2.morphologyEx``: tophat with
 is decomposed into one horizontal run per SE row, each run computed as a
 centered min/max filter via log-depth doubling, then combined across rows.
 Cost: O(#distinct run lengths * log(width) + SE height) elementwise passes —
-about 100 VPU passes instead of 3000 taps, all fusable by XLA.
+about 100 elementwise passes instead of 3000 taps, all fusable by XLA.
 
 Border semantics match OpenCV's default morphologyEx border
 (BORDER_CONSTANT with +inf for erode / -inf for dilate): out-of-bounds

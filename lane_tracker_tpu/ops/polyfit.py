@@ -1,6 +1,6 @@
 """Weighted quadratic least squares, poly sampling, validity, radius, ecc.
 
-TPU-native replacements for the reference's estimation layer
+JAX replacements for the reference's estimation layer
 (lane_tracker.py:502-627):
 
 * :func:`fit_poly_mask` — ``np.polyfit(y, x, 2)`` over a pixel *mask*

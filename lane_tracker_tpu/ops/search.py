@@ -1,6 +1,6 @@
 """Lane-pixel search: sliding-window (blind) and band (warm-start) searches.
 
-TPU-native re-design of the reference's two search strategies:
+JAX re-design of the reference's two search strategies:
 
 * sliding window — lane_tracker.py:242-447.  The reference runs a Python
   loop over ~26 vertical levels, each doing a column-sum, a full-mode
@@ -157,9 +157,8 @@ def sws_precompute(binary: jnp.ndarray, cfg: SearchConfig) -> SwsPrecomp:
     # the reduce's dtype: under a chunk-wide vmap the staged image is the
     # program's largest temp (XLA materializes it for the two consumers
     # below), and int8 prices it at 1 byte/px instead of the s32 cast's 4
-    # — this is what held T=768 chunks 485 MB over HBM (round-4 verdict
-    # item 4; docs/PERFORMANCE.md HBM-wall section).  Exact: values are
-    # 0/1, every sum here is < 2^24.
+    # — enough to decide whether a T=768 chunk fits in device memory.
+    # Exact: values are 0/1, every sum here is < 2^24.
     img = (binary > 0).astype(jnp.int8)
 
     col_sum = jnp.sum(img[y_start:img_height, :], axis=0, dtype=jnp.int32)

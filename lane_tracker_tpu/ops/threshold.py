@@ -1,6 +1,6 @@
 """Adaptive thresholding ops for lane-pixel isolation.
 
-TPU-native equivalents of the reference's thresholding stage:
+JAX equivalents of the reference's thresholding stage:
 
 * :func:`bilateral_adaptive_threshold` — the cross-kernel threshold the
   reference builds from four ``cv2.filter2D`` passes (lane_tracker.py:14-83).

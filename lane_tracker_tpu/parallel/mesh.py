@@ -1,7 +1,7 @@
 """Device mesh helpers for stream-parallel serving.
 
 The fleet design (SURVEY §2c): independent dashcam streams are the primary
-data-parallel axis, sharded over ICI with jax.sharding; an optional second
+data-parallel axis, sharded across devices with jax.sharding; an optional second
 axis shards image rows *within* a frame for the stencil-heavy front half
 (XLA SPMD inserts the halo exchanges for the window ops automatically).
 There is no gradient/weight traffic — steady-state cross-chip communication

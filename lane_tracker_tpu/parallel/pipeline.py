@@ -4,18 +4,18 @@ The reference processes frames strictly one at a time through MoviePy
 (process_video.py:43), leaving every stage latency-bound.  The tracker's
 only *true* sequential dependency is the tiny per-frame state (coefficient
 history, counters) feeding the next frame's band search; everything else is
-stateless.  So the TPU pipeline splits each chunk of T frames into:
+stateless.  So the device pipeline splits each chunk of T frames into:
 
   1. ``vmap(front_half)``   — undistort+warp gathers, LAB, tophat,
                               thresholds for all T frames at once (the bulk
-                              of the arithmetic, batched onto the VPU/MXU),
+                              of the arithmetic, batched),
   2. ``lax.scan(back_half)`` — search/fit/validate/state-update per frame
                               (cheap, carries the state),
   3. ``vmap(render_frame)`` — overlay rendering for all T frames at once.
 
 One jit covers all three, so XLA overlaps and fuses across stages.  This is
 the single-stream building block; parallel/streams.py shards many of these
-across chips.
+across devices.
 """
 
 from __future__ import annotations
@@ -117,8 +117,7 @@ def chunk_process(
     if mode not in ("cond", "hoist", "two_phase"):
         raise ValueError(f"unknown second_attempt mode {mode!r}")
     has_a2 = config.n_tries >= 2 or config.n_tries == -1
-    # Batched front half (the filter runs once on the whole chunk so
-    # grid-batched Pallas backends work; identical to per-frame vmap).
+    # Batched front half (bit-identical to the per-frame vmap).
     arts = front_artifacts_batch(
         frames, params, config, hoist_second_attempt=(mode == "hoist")
     )

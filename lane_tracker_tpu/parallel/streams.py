@@ -1,4 +1,4 @@
-"""Multi-stream fleet serving: data-parallel streams sharded over ICI.
+"""Multi-stream fleet serving: data-parallel streams sharded over devices.
 
 The reference is a single stateful object processing one video
 (process_video.py:28-44).  Production serving runs many dashcam streams at
@@ -8,17 +8,14 @@ steps in lockstep chunks:
     states:  pytree with leading (S,) axis, sharded over the 'stream' mesh axis
     frames:  (S, T, Hc, Wc, 3) uint8, sharded on S
 
-The fleet step is a ``shard_map`` over the mesh: each chip flattens its
+The fleet step is a ``shard_map`` over the mesh: each device flattens its
 local (S_local, T) frames into ONE (S_local*T) batch for the stateless
-front half — so the grid-batched Pallas filter kernels run exactly as in
-single-stream serving, instead of a vmapped XLA fallback — and only the
-tiny O(H)-per-frame back-half scan runs vmapped per stream.  Streams are
-independent, so the only cross-chip traffic is the final metrics psum.
+front half — exactly as in single-stream serving — and only the tiny
+O(H)-per-frame back-half scan runs vmapped per stream.  Streams are
+independent, so the only cross-device traffic is the final metrics psum.
 
-(Round-1 design vmapped whole chunk pipelines over streams: the scanned
-second-attempt lax.cond became an executed-both-sides O(H*W) re-filter —
-148 fps aggregate — and the vmapped filter could not use the Pallas
-kernels at all.)
+(Vmapping whole chunk pipelines over streams instead turns the scanned
+second-attempt lax.cond into an executed-both-sides O(H*W) re-filter.)
 """
 
 from __future__ import annotations
@@ -51,12 +48,12 @@ def build_fleet_processor(config: TrackerConfig, mesh,
     """jit fn: (states(S,...), frames(S,T,...), params) -> (states, outs, metrics).
 
     metrics is a dict of fleet-aggregated scalars (psum'd across the
-    'stream' mesh axis over ICI).
+    'stream' mesh axis).
 
     second_attempt: 'two_phase' (default) scans attempt-1 only and runs
-    ONE chip-level conditional batched fallback when some local frame
+    ONE device-level conditional batched fallback when some local frame
     failed — free in the steady state, but a failure-bearing chunk pays
-    the batched attempt-2 front for the chip's WHOLE local batch.
+    the batched attempt-2 front for the device's WHOLE local batch.
     'hoist' computes attempt-2 artifacts unconditionally up front —
     every chunk pays ~the attempt-2 filter, but failure-dense loads pay
     nothing extra (scripts/fleet_bench.py measures the crossover).
@@ -90,13 +87,13 @@ def build_fleet_processor(config: TrackerConfig, mesh,
             # the batched front above; scan once with the full config.
             states, (outs, metas) = scan_all(states, arts_st, config)
         elif has_a2:
-            # Two-phase conditional hoist (round-2 verdict item 2): scan
-            # attempt-1 only; ONE chip-level lax.cond runs the batched
-            # attempt-2 front + rescan only when some local frame failed.
-            # In the steady state (valid_fraction ~= 1) the fallback costs
-            # nothing — the unconditional hoist made EVERY frame pay the
-            # ~0.43 ms attempt-2 filter, the round-2 fleet's whole 29%
-            # giveback.  Chips diverge freely here (no collective inside).
+            # Two-phase conditional hoist: scan attempt-1 only; ONE
+            # device-level lax.cond runs the batched attempt-2 front +
+            # rescan only when some local frame failed.  In the steady
+            # state (valid_fraction ~= 1) the fallback costs nothing,
+            # where the unconditional hoist makes EVERY frame pay the
+            # attempt-2 filter.  Devices diverge freely here (no
+            # collective inside).
             cfg1 = dataclasses.replace(config, n_tries=1)
             states1, (outs1, metas1) = scan_all(states, arts_st, cfg1)
             all_valid = outs1.valid.all()
@@ -167,21 +164,21 @@ class StreamFleet:
     ):
         """second_attempt: 'two_phase', 'hoist', or 'auto'.
 
-        'auto' (round-4 verdict item 5) tracks the observed
-        poisoned-step probability — the fraction of steps where ANY
-        chip's local batch contains an attempt-1 failure.  The metrics
-        psum puts chips in lockstep, so a step's wall time is the max
-        over chips: one poisoned chip-chunk makes the whole fleet pay
-        two_phase's fallback rate, which is why the indicator is
-        any-over-chips, not the mean.  This is the exact quantity the
-        measured crossover is in (docs/PERFORMANCE.md fleet schedule
-        table: hoist flat at 1.237 ms/frame, two_phase 0.987 clean /
-        1.290 poisoned, crossover P = 0.81); the controller keeps a
-        host-side EMA of the per-step indicator and flips the schedule
-        past the crossover.  Hysteresis keeps a load sitting on the
-        boundary from thrashing; both schedules are bit-exact, so the
-        flip never changes outputs, only cost.  A dead camera (P = 1)
-        now recovers hoist's ~808 fps without operator action.
+        'auto' tracks the observed poisoned-step probability — the
+        fraction of steps where ANY device's local batch contains an
+        attempt-1 failure.  The metrics psum puts devices in lockstep,
+        so a step's wall time is the max over devices: one poisoned
+        device-chunk makes the whole fleet pay two_phase's fallback
+        rate, which is why the indicator is any-over-devices, not the
+        mean.  The controller keeps a host-side EMA of the per-step
+        indicator and flips the schedule past ``auto_crossover``, the
+        poisoned-step probability at which hoist's flat cost equals
+        two_phase's mixed one.  The default 0.81 was measured on
+        another device and is not yet re-measured on this one.
+        Hysteresis keeps a load sitting on the boundary from thrashing;
+        both schedules are bit-exact, so the flip never changes outputs,
+        only cost.  A dead camera (P = 1) flips the fleet to hoist
+        without operator action.
         """
         self.params = params
         self.config = config
@@ -234,7 +231,7 @@ class StreamFleet:
 
     def _auto_update(self, outs):
         """EMA the observed poisoned-step rate and flip the schedule at
-        the measured crossover (see __init__).  a1_valid is the
+        the crossover (see __init__).  a1_valid is the
         attempt-1 outcome under BOTH schedules, so the observation is
         schedule-independent; the fetch is S*T bools per step."""
         a1 = np.asarray(outs.a1_valid)

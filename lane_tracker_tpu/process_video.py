@@ -3,7 +3,7 @@
 Equivalent of the reference's ``process_video.py`` (process_video.py:1-49):
 load calibration, construct a tracker, stream a video through it, write the
 annotated output, and print the success ratio — but chunked through the
-batched TPU pipeline instead of MoviePy's one-frame-at-a-time callback, and
+batched device pipeline instead of MoviePy's one-frame-at-a-time callback, and
 configurable from the command line instead of editing default argument
 values (the reference's documented MoviePy workaround, README.md:34).
 
@@ -28,7 +28,7 @@ import numpy as np
 def build_arg_parser():
     p = argparse.ArgumentParser(
         prog="lane_tracker_tpu",
-        description="TPU-native lane detection and tracking over a video.",
+        description="Lane detection and tracking over a video, in JAX.",
     )
     p.add_argument("input", help="video file, image directory, or .npz stack")
     p.add_argument("output", help="output video/.npz/directory")
@@ -53,9 +53,9 @@ def build_arg_parser():
         help="second-attempt schedule: 'two_phase' (chunk-level conditional "
         "batched fallback — the steady-state optimum, free when every frame "
         "tracks), 'cond' (per-frame lax.cond inside the scan), or 'hoist' "
-        "(unconditional — flat cost, fastest when most chunks bear a "
-        "failure; crossover analysis in docs/PERFORMANCE.md). All three "
-        "are pinned bit-identical (tests/test_parallel.py)",
+        "(unconditional — flat cost, for loads where most chunks bear a "
+        "failure). All three are pinned bit-identical "
+        "(tests/test_parallel.py)",
     )
     p.add_argument("--n-fail", type=int, default=8)
     p.add_argument("--n-reset", type=int, default=4)
@@ -72,8 +72,8 @@ def build_arg_parser():
         "--no-output",
         action="store_true",
         help="headless: skip overlay rendering/fetch/encode, keep metrics "
-        "and per-frame logs (throughput mode for remote backends where "
-        "fetching 2.7 MB/frame of pixels dominates)",
+        "and per-frame logs (throughput mode where nobody consumes the "
+        "2.7 MB/frame of overlay pixels)",
     )
     return p
 
@@ -87,8 +87,10 @@ def run(argv=None):
     from lane_tracker_tpu.render.text import draw_text
     from lane_tracker_tpu.tracker.config import PRESETS
     from lane_tracker_tpu.tracker.step import TrackerParams, make_initial_state
+    from lane_tracker_tpu.utils.compile_cache import setup_compile_cache
     from lane_tracker_tpu.utils.profiling import FpsMeter, maybe_profile
 
+    setup_compile_cache()
     cam, warp = load_calibration_npz(args.calibration)
     params = TrackerParams.build(
         cam.cam_matrix,
@@ -180,8 +182,8 @@ def run(argv=None):
             state, outs = step(state, chunk, params)
             if first:
                 # Steady-state meter: the first chunk's dispatch includes
-                # the one-time jit compile (tens of seconds on a remote
-                # backend), which would swamp a short run's fps; its
+                # the one-time jit compile (tens of seconds at full
+                # geometry), which would swamp a short run's fps; its
                 # frames are excluded from the meter too.
                 import jax
 

@@ -1,6 +1,6 @@
 """On-device lane overlay rendering.
 
-TPU-native equivalent of ``LaneTracker.draw_lane`` (lane_tracker.py:629-662):
+JAX equivalent of ``LaneTracker.draw_lane`` (lane_tracker.py:629-662):
 the reference fillPolys the region between the two smoothed lane graphs on a
 bird's-eye canvas, unwarps it with Minv, and alpha-blends onto the frame.
 Here the polygon between two single-valued graphs is rasterized directly as
@@ -96,8 +96,8 @@ def lane_overlay_direct(
 ) -> jnp.ndarray:
     """Blend the lane region evaluated directly in camera space.
 
-    Instead of rasterizing a bird's-eye mask and unwarping it (a 0.9 ms
-    gather per frame), each camera pixel tests its precomputed BV
+    Instead of rasterizing a bird's-eye mask and unwarping it (a
+    per-pixel gather every frame), each camera pixel tests its precomputed BV
     coordinates against the smoothed boundary polynomials — closed-form
     elementwise math, zero gathers.  The re-anchored graph lookup
     fitx[first + v-(H-n)] becomes polyval at the affine ploty position.

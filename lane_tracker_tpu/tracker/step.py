@@ -1,6 +1,6 @@
 """The pure per-frame tracking step.
 
-This is the TPU-native re-design of ``LaneTracker.process``
+This is the JAX re-design of ``LaneTracker.process``
 (lane_tracker.py:876-1209) as a pure function::
 
     step : (TrackerState, frame) -> (TrackerState, StepOutput)
@@ -38,10 +38,7 @@ from lane_tracker_tpu.kernels.resample import (
     bilinear_gather_pair,
 )
 from lane_tracker_tpu.ops.color import rgb2lab_b_fast, rgb2lab_b_u8
-from lane_tracker_tpu.ops.filters import (
-    filter_lane_points_channels,
-    resolve_filter_backend,
-)
+from lane_tracker_tpu.ops.filters import filter_lane_points_channels
 from lane_tracker_tpu.ops.integrals import RowPrefixes, build_row_prefixes, interval_moments
 from lane_tracker_tpu.ops.polyfit import (
     check_validity,
@@ -94,10 +91,8 @@ class TrackerParams:
     mpph: float
     pipeline: str  # 'fast' | 'compat' | 'turbo'
     raw_roi: tuple = (0, 0)  # raw-frame row range feeding grid_und_roi
-    filter_backend: str = "auto"  # 'auto' | 'xla' | 'pallas2'
     # 'corridor' only: warped columns [x0, x1) whose filter decisions are
-    # kept (a measured approximation — docs/PERFORMANCE.md); None = full
-    # width.
+    # kept; None = full width.
     col_roi: tuple | None = None
     # 'corridor' only: warped columns [c0, c1) the warp/LAB/filter
     # actually COMPUTE — col_roi expanded by the filter chain's influence
@@ -115,10 +110,9 @@ class TrackerParams:
     # warped channel's out-of-bounds taps carry weight 0).
     warp_b_bias: jnp.ndarray | None = None
     # Latency mode (opt-in via with_rowmm()): tile-structured resampling
-    # grids replacing the per-pixel gathers with slab reads + one-hot MXU
-    # contractions — bit-identical outputs, built for small-T/per-frame
-    # programs where the scalar gather dominates latency
-    # (kernels/resample_rowmm.py).
+    # grids replacing the per-pixel gathers with slab reads + one-hot
+    # matmul contractions — bit-identical outputs, aimed at small-T and
+    # per-frame programs (kernels/resample_rowmm.py).
     mm_und: object | None = None
     mm_warp: object | None = None
 
@@ -142,7 +136,6 @@ class TrackerParams:
             self.mpph,
             self.pipeline,
             self.raw_roi,
-            self.filter_backend,
             self.col_roi,
             self.col_comp,
             self.res_scale,
@@ -157,11 +150,10 @@ class TrackerParams:
 
     def with_rowmm(self) -> "TrackerParams":
         """Params carrying the latency-mode resampling structure: the
-        two-stage warp runs as slab gathers + one-hot MXU contractions
+        two-stage warp runs as slab gathers + one-hot matmul contractions
         (kernels/resample_rowmm.py), bit-identical to the gather path.
-        Opt-in because the one-hot tensors cost ~400 MB of HBM and only
-        pay off where the per-pixel gather's per-index cost dominates —
-        single-frame and small-chunk (T < 8) programs."""
+        Opt-in because the one-hot tensors hold ~400 MB of device memory
+        and can only pay off in single-frame and small-chunk programs."""
         if self.pipeline == "compat" or self.grid_und_roi is None:
             return self
         from lane_tracker_tpu.kernels.resample_rowmm import build_rowmm
@@ -184,7 +176,6 @@ class TrackerParams:
         mppv,
         mpph,
         pipeline: str = "fast",
-        filter_backend: str = "auto",
         col_roi: tuple | None = None,
     ) -> "TrackerParams":
         img_size = tuple(int(v) for v in img_size)
@@ -201,7 +192,7 @@ class TrackerParams:
             # every px-denominated config knob halves
             # (config.halve_config; LaneTracker applies it).  Geometry
             # is otherwise the reference's exact two-stage chain; the
-            # deviation is resolution, measured in APPROX_BENCH.json.
+            # deviation is resolution (scripts/approx_quality.py).
             # Internally this behaves as 'fast' at the scaled sizes.
             res_scale = 2
             S = np.array([[0.5, 0.0, -0.25],
@@ -217,10 +208,6 @@ class TrackerParams:
         )
         fu, fv = forward_bv_grid(np.asarray(M), img_size, warped_size)
         if pipeline not in ("compat", "fast", "turbo", "corridor", "half"):
-            # The round-2 'mxu' banded matmul warp was demoted to
-            # scripts/resample_mxu2.py (slower than the gather path AND
-            # tied to the fused resampling map that round-3 corpus
-            # testing rejected — post-mortem in that file's docstring).
             raise ValueError("pipeline must be 'fast', 'compat', 'turbo',"
                              " 'corridor' or 'half'")
         # Both pipelines use the reference's exact two-stage resampling
@@ -297,7 +284,6 @@ class TrackerParams:
             mpph=float(mpph),
             pipeline=pipeline,
             raw_roi=raw_roi,
-            filter_backend=filter_backend,
             col_roi=col_roi,
             col_comp=col_comp,
             res_scale=res_scale,
@@ -387,61 +373,78 @@ def _roi_grids(und_q: dict, g_warp: ResampleGrid, img_size):
     return g_und_roi, g_warp_roi, (ry0, ry1)
 
 
+def _undistort_rgb(frame, params: TrackerParams):
+    """The undistort stage of the exact two-stage chain, ROI-cropped
+    (_roi_grids): the three undistorted planes of the rows the warp
+    samples, computed from only the raw rows those need."""
+    ry0, ry1 = params.raw_roi
+    sub = frame[ry0:ry1]
+    if params.mm_und is not None:
+        # Latency mode (with_rowmm): same taps/weights via slab reads +
+        # one-hot matmul contractions — bit-identical
+        # (kernels/resample_rowmm.py).
+        from lane_tracker_tpu.kernels.resample_rowmm import (
+            gather_planes_rowmm,
+        )
+
+        return tuple(gather_planes_rowmm(
+            jnp.moveaxis(sub, -1, 0), params.grid_und_roi, params.mm_und))
+    r_u, g_u = bilinear_gather_pair(sub[..., 0], sub[..., 1],
+                                    params.grid_und_roi)
+    b_u = bilinear_gather(sub[..., 2], params.grid_und_roi)
+    return r_u, g_u, b_u
+
+
+def _warp_rgb(frame, params: TrackerParams):
+    """The warped R, G, B planes of the exact two-stage chain (undistort
+    then warp, lane_tracker.py:832-834) — the input of LAB-B on every
+    non-compat pipeline except 'turbo'."""
+    r_u, g_u, b_u = _undistort_rgb(frame, params)
+    if params.mm_warp is not None:
+        from lane_tracker_tpu.kernels.resample_rowmm import (
+            gather_planes_rowmm,
+        )
+
+        return tuple(gather_planes_rowmm(
+            jnp.stack([r_u, g_u, b_u]), params.grid_warp_roi,
+            params.mm_warp))
+    r_w, g_w = bilinear_gather_pair(r_u, g_u, params.grid_warp_roi)
+    b_w = bilinear_gather(b_u, params.grid_warp_roi)
+    return r_w, g_w, b_w
+
+
 def _warp_channels(frame, params: TrackerParams):
     """Produce the warped R and LAB-B channels for the filter stage.
 
     'compat' chains undistort -> warp -> LAB exactly like the reference
-    (lane_tracker.py:832-834, 207-208).  'fast' computes LAB-B on the
-    smaller raw frame and uses the fused single-gather grid for both
-    channels: 2 gathers on 1 channel each instead of 6, and LAB on 0.92 MP
-    instead of 1.19 MP.
+    (lane_tracker.py:832-834, 207-208).  The other pipelines run the same
+    exact resampling chain, ROI-cropped (_warp_rgb), and evaluate LAB-B
+    arithmetically instead of through the LUT.
     """
     if params.pipeline == "compat":
         und = bilinear_gather(frame, params.grid_und)
         warped = bilinear_gather(und, params.grid_warp)
         return warped[..., 0], rgb2lab_b_u8(warped)
-    # 'fast': the EXACT reference resampling chain — two-stage (undistort
-    # then warp, lane_tracker.py:832-834) on all three RGB channels, LAB
-    # computed from the warped frame.  Channels are bit-identical to
-    # 'compat' (pair gathers use exactly the taps and weights of the
-    # single-channel calls); the only deviation left is rgb2lab_b_fast's
-    # arithmetic vs LUT evaluation (<=1 unit on <0.1% of pixels).
-    # Corpus-measured round 3: any resampling shortcut breaks parity —
-    # the one-gather fused resample flipped 2-25% of white pixels (curve
-    # RMSE up to 147 px on marginal frames) and even raw-frame LAB with
-    # exact two-stage warps flipped a longrun validity (RMSE 3.0 px), so
-    # the benched pipeline pays for the full chain and wins it back in
-    # the filter stage instead.
-    # ROI cropping (_roi_grids): the undistort stage computes only the
-    # rows the warp samples, from only the raw rows those need.
-    ry0, ry1 = params.raw_roi
-    sub = frame[ry0:ry1]
-    if params.mm_und is not None:
-        # Latency mode (with_rowmm): same taps/weights via slab reads +
-        # one-hot MXU contractions — bit-identical, ~30x cheaper for a
-        # single unbatched frame (kernels/resample_rowmm.py).
-        from lane_tracker_tpu.kernels.resample_rowmm import (
-            gather_planes_rowmm,
-        )
-
-        r_u, g_u, b_u = gather_planes_rowmm(
-            jnp.moveaxis(sub, -1, 0), params.grid_und_roi, params.mm_und)
-    else:
-        r_u, g_u = bilinear_gather_pair(sub[..., 0], sub[..., 1],
-                                        params.grid_und_roi)
-        b_u = bilinear_gather(sub[..., 2], params.grid_und_roi)
+    # The channels are bit-identical to 'compat' (pair gathers use
+    # exactly the taps and weights of the single-channel calls); the only
+    # deviation left is rgb2lab_b_fast's arithmetic vs LUT evaluation
+    # (<=1 unit on <0.1% of pixels).  Corpus-measured: any resampling
+    # shortcut breaks parity — the one-gather fused resample flipped
+    # 2-25% of white pixels (curve RMSE up to 147 px on marginal frames)
+    # and even raw-frame LAB with exact two-stage warps flipped a longrun
+    # validity (RMSE 3.0 px), so the pipeline pays for the full chain.
     if params.pipeline == "turbo":
         # 'turbo': MEASURED-APPROXIMATION pipeline (opt-in; quality
-        # measured in scripts/turbo_quality.py, documented in
-        # docs/PERFORMANCE.md).  LAB-B is computed on the undistorted
-        # band (~0.31 MP instead of the 1.19 MP warped frame) and the
-        # stage-2 warp resamples only R + LAB-B as ONE pair gather
-        # (1 packed take instead of pair+single).  Geometry is the
-        # reference's exact two-stage chain; the only deviation vs
-        # 'fast' is interpolate(LAB(x)) instead of LAB(interpolate(x))
-        # across the warp — the reference computes LAB on the warped
-        # frame (lane_tracker.py:832-834, 207-208), and the two differ
-        # by the nonlinearity's Jensen gap on blended edge pixels.
+        # measured in scripts/turbo_quality.py).  LAB-B is computed on
+        # the undistorted band (~0.31 MP instead of the 1.19 MP warped
+        # frame) and the stage-2 warp resamples only R + LAB-B as ONE
+        # pair gather.  Geometry is the reference's exact two-stage
+        # chain; the only deviation vs 'fast' is interpolate(LAB(x))
+        # instead of LAB(interpolate(x)) across the warp — the reference
+        # computes LAB on the warped frame (lane_tracker.py:832-834,
+        # 207-208), and the two differ by the nonlinearity's Jensen gap
+        # on blended edge pixels.
+        r_u, g_u, b_u = _undistort_rgb(frame, params)
         lab_u = rgb2lab_b_fast(jnp.stack([r_u, g_u, b_u], axis=-1))
         if params.mm_warp is not None:
             from lane_tracker_tpu.kernels.resample_rowmm import (
@@ -453,19 +456,8 @@ def _warp_channels(frame, params: TrackerParams):
                 bias_b=params.warp_b_bias)
         return bilinear_gather_pair(r_u, lab_u, params.grid_warp_roi,
                                     bias_b=params.warp_b_bias)
-    if params.mm_warp is not None:
-        from lane_tracker_tpu.kernels.resample_rowmm import (
-            gather_planes_rowmm,
-        )
-
-        r_w, g_w, b_w = gather_planes_rowmm(
-            jnp.stack([r_u, g_u, b_u]), params.grid_warp_roi,
-            params.mm_warp)
-    else:
-        r_w, g_w = bilinear_gather_pair(r_u, g_u, params.grid_warp_roi)
-        b_w = bilinear_gather(b_u, params.grid_warp_roi)
-    lab = rgb2lab_b_fast(jnp.stack([r_w, g_w, b_w], axis=-1))
-    return r_w, lab
+    r_w, g_w, b_w = _warp_rgb(frame, params)
+    return r_w, rgb2lab_b_fast(jnp.stack([r_w, g_w, b_w], axis=-1))
 
 
 def _embed_cols(binary, params: TrackerParams):
@@ -484,64 +476,19 @@ def _embed_cols(binary, params: TrackerParams):
     return jnp.pad(binary, pad)
 
 
-def _embed_prefixes(pref: RowPrefixes, params: TrackerParams) -> RowPrefixes:
-    """Rebase compute-window packed row prefixes onto the full width,
-    keeping only the decision corridor's pixels.
-
-    The packed word is (x_sum << shift) | count with shift derived from
-    the width (ops/integrals._count_shift), so the window's prefixes
-    repack exactly: subtracting the prefix at the corridor's left edge
-    drops the margin pixels, counts then carry over unchanged, x-sums
-    shift by c0 * count (compute coords -> full coords), positions
-    X <= x0 hold 0 and X > x1 hold the corridor total.  O(H * Wc) int32
-    work — negligible next to the filter it rides on.
-    """
-    if params.col_roi is None:
-        return pref
-    x0, x1 = params.col_roi
-    c0, c1 = params.col_comp
-    W = params.warped_size[0]
-    packed = pref.packed  # (..., H, Wcm + 1) int32, window-width packing
-    Wcm = packed.shape[-1] - 1
-    assert Wcm == c1 - c0, (Wcm, params.col_comp)
-    shift_c = (Wcm + 1).bit_length()
-    shift_f = (W + 1).bit_length()
-    a, b = x0 - c0, x1 - c0
-    cnt = packed & ((1 << shift_c) - 1)
-    xs = packed >> shift_c
-    # Corridor-relative prefixes at full positions X in [x0, x1].
-    seg_cnt = cnt[..., a:b + 1] - cnt[..., a:a + 1]
-    seg_xs = xs[..., a:b + 1] - xs[..., a:a + 1] + c0 * seg_cnt
-    repacked = (seg_xs << shift_f) | seg_cnt
-    pad_left = [(0, 0)] * (packed.ndim - 1) + [(x0, 0)]
-    left = jnp.pad(repacked, pad_left)  # X <= x0: zero pixels before
-    tail = jnp.broadcast_to(
-        repacked[..., -1:], packed.shape[:-1] + (W - x1,))
-    return RowPrefixes(packed=jnp.concatenate([left, tail], axis=-1))
-
-
 # Chunks at or beyond this T run the warp+LAB stage through lax.map in
 # blocks of _WARP_MAP_BATCH frames instead of one whole-chunk vmap: the
-# pair-gathers' packed-u32 tap reads are the program's largest HBM temps
-# (4 x u32[T,Hw,Ww] ~ 14.3 GB at T=768 — the round-4 HBM wall after the
-# sws int8 fix; scripts/hbm_probe.py), and XLA's remat keeps them alive
-# whole-chunk.  Mapping in blocks caps the tap temps at batch size while
-# the warped-channel OUTPUTS (u8, 2 x T*Hw*Ww) are unchanged.  The
-# threshold leaves the benched T=512 headline program byte-identical.
-# LT_WARP_MAP_MIN_T lowers the blocking threshold (e.g. 512 to block the
-# fleet's flattened 8x64 front, whose tap temps are what RESOURCE_EXHAUST
-# that configuration — see docs/PERFORMANCE.md fleet section).
-_WARP_MAP_MIN_T = int(__import__("os").environ.get(
-    "LT_WARP_MAP_MIN_T", "768"))
+# pair-gathers' packed-u32 tap reads are the program's largest device
+# temporaries (4 x u32[T,Hw,Ww], ~14.3 GB at T=768), and XLA's remat
+# keeps them alive for the whole chunk.  Mapping in blocks caps the tap
+# temporaries at the block size while the warped-channel outputs (u8,
+# 2 x T*Hw*Ww) are unchanged.  The threshold leaves the T=512 program
+# unblocked.  All three constants were chosen on another device and
+# are not yet re-derived for this one.
+_WARP_MAP_MIN_T = 768
 _WARP_MAP_BATCH = 256
-# Chunks BELOW this T warp frame-by-frame (lax.map with no inner vmap).
-# Round-5 measurement history: the bisect blamed the T=1 cliff on the
-# tiny-batch vmap's padded batch-minor layouts and this threshold was
-# briefly 8, but the on-hardware sweep showed lax.map REGRESSES T=2/4
-# (30.7 ms/frame at T=2 vs vmap's 23.6; vmap T=4 runs the whole chunk in
-# 27.5 ms) while leaving T=1 unchanged (45.9 both ways — the unbatched
-# per-pixel gather pays the same per-index cost the padded vmap does).
-# So only the T=1 program, where vmap and map tie, stays frame-by-frame.
+# Chunks below this T warp frame by frame (lax.map with no inner vmap);
+# only the T=1 program, where vmap and map were measured to tie, does.
 _WARP_VMAP_MIN_T = 2
 
 
@@ -653,7 +600,6 @@ def front_half(frame, params: TrackerParams, config: TrackerConfig):
         ksize_noise=f1.ksize_noise,
         C_noise=f1.C_noise,
         noise_thresh=f1.noise_thresh,
-        backend=params.filter_backend,
         tophat_r=f1.tophat_r,
         tophat_b=f1.tophat_b,
         open_k=f1.open_k,
@@ -693,56 +639,15 @@ def _second_attempt_binary(r_chan, b_chan, params: TrackerParams):
         ksize_noise=f2.ksize_noise,
         C_noise=f2.C_noise,
         noise_thresh=f2.noise_thresh,
-        backend=params.filter_backend,
         tophat_r=f2.tophat_r,
         tophat_b=f2.tophat_b,
         open_k=f2.open_k,
     )
 
 
-def _filter_batch(r_chan, b_chan, fcfg, backend, want_prefixes=False):
-    """Filter a (T, H, W) channel batch; returns (binary, prefixes|None).
-
-    The 'pallas2' backend batches natively via a grid dimension (Pallas
-    ANY-space inputs cannot vmap); every other backend (and the
-    'neighborhood'+mask_noise combination, which pallas2 does not
-    implement) is the per-frame XLA chain under vmap.  With
-    ``want_prefixes`` the pallas2 path also returns the packed row
-    prefixes emitted by in-kernel MXU dots overlapping the merge+open
-    kernel's VPU sweeps (kernels/filter_stage2.merge_open_pallas2);
-    other paths return None and the caller falls back to the XLA matmul.
-    """
-    backend = resolve_filter_backend(backend)
-    if backend == "pallas2" and fcfg.filter_type == "bilateral":
-        from lane_tracker_tpu.kernels.filter_stage2 import filter_stage_v2
-
-        out = filter_stage_v2(
-            r_chan, b_chan,
-            ksize_r=fcfg.ksize_r, C_r=fcfg.C_r,
-            ksize_b=fcfg.ksize_b, C_b=fcfg.C_b,
-            mask_noise=fcfg.mask_noise, ksize_noise=fcfg.ksize_noise,
-            C_noise=fcfg.C_noise, noise_thresh=fcfg.noise_thresh,
-            emit_prefixes=want_prefixes,
-            tophat_r=fcfg.tophat_r, tophat_b=fcfg.tophat_b,
-            open_k=fcfg.open_k,
-        )
-        return out if want_prefixes else (out, None)
-    if (backend == "pallas2" and fcfg.filter_type == "neighborhood"
-            and not fcfg.mask_noise):
-        from lane_tracker_tpu.kernels.filter_stage2 import (
-            neighborhood_stage_v2,
-        )
-
-        out = neighborhood_stage_v2(
-            r_chan, b_chan,
-            ksize_r=fcfg.ksize_r, C_r=fcfg.C_r,
-            ksize_b=fcfg.ksize_b, C_b=fcfg.C_b,
-            emit_prefixes=want_prefixes,
-            open_k=fcfg.open_k,
-        )
-        return out if want_prefixes else (out, None)
-    xla_backend = "xla" if backend == "pallas2" else backend
-    binary = jax.vmap(
+def _filter_batch(r_chan, b_chan, fcfg):
+    """The per-frame XLA filter chain vmapped over a (T, H, W) batch."""
+    return jax.vmap(
         lambda r, b: filter_lane_points_channels(
             r, b,
             filter_type=fcfg.filter_type,
@@ -750,12 +655,10 @@ def _filter_batch(r_chan, b_chan, fcfg, backend, want_prefixes=False):
             ksize_b=fcfg.ksize_b, C_b=fcfg.C_b,
             mask_noise=fcfg.mask_noise, ksize_noise=fcfg.ksize_noise,
             C_noise=fcfg.C_noise, noise_thresh=fcfg.noise_thresh,
-            backend=xla_backend,
             tophat_r=fcfg.tophat_r, tophat_b=fcfg.tophat_b,
             open_k=fcfg.open_k,
         )
     )(r_chan, b_chan)
-    return binary, None
 
 
 def second_attempt_artifacts_batch(r_chan, b_chan, params: TrackerParams):
@@ -764,14 +667,8 @@ def second_attempt_artifacts_batch(r_chan, b_chan, params: TrackerParams):
     intervals for a (T, H, W) channel batch."""
     W, H = params.warped_size
     sa = _sa_config(params)
-    binary2, pref2 = _filter_batch(r_chan, b_chan, sa.filter,
-                                   params.filter_backend,
-                                   want_prefixes=True)
-    binary2 = _embed_cols(binary2, params)
-    if pref2 is None:
-        pref2 = jax.vmap(build_row_prefixes)(binary2)
-    else:
-        pref2 = _embed_prefixes(pref2, params)
+    binary2 = _embed_cols(_filter_batch(r_chan, b_chan, sa.filter), params)
+    pref2 = jax.vmap(build_row_prefixes)(binary2)
     iv2 = jax.vmap(lambda b: sliding_window_intervals(
         sws_precompute(b, sa.search),
         sa.search, H, W))(binary2)
@@ -786,19 +683,14 @@ def front_artifacts_batch(
 ) -> "FrontArtifacts":
     """Batched front half for a (T, Hc, Wc, 3) chunk.
 
-    Same artifacts as vmap(front_artifacts) but with the filter stage
-    invoked ONCE on the whole batch so grid-batched Pallas backends work;
-    bit-identical to the per-frame path for every backend.
+    Same artifacts as vmap(front_artifacts), with the warp blocked by
+    chunk size (_warp_channels_batch); bit-identical to the per-frame path.
     """
     r_chan, b_chan = _warp_channels_batch(frames, params)
-    binary1, pref = _filter_batch(r_chan, b_chan, config.filter,
-                                  params.filter_backend, want_prefixes=True)
-    binary1 = _embed_cols(binary1, params)
+    binary1 = _embed_cols(_filter_batch(r_chan, b_chan, config.filter),
+                          params)
     W, H = params.warped_size
-    if pref is None:
-        pref = jax.vmap(build_row_prefixes)(binary1)
-    else:
-        pref = _embed_prefixes(pref, params)
+    pref = jax.vmap(build_row_prefixes)(binary1)
     iv_sws = jax.vmap(lambda b: sliding_window_intervals(
         sws_precompute(b, config.search), config.search, H, W))(binary1)
     pref2 = iv2 = None

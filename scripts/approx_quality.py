@@ -58,7 +58,7 @@ def main(argv):
         DEMO1_KW,
         _band_patch,
         _make_ref_tracker,
-        _make_tpu_tracker,
+        _make_jax_tracker,
         _numpy_2017_shims,
     )
 
@@ -97,16 +97,16 @@ def main(argv):
     ref_ratio = tuple(ref.get_success_ratio()[1:])
 
     print(f"{pipeline} side (chunked pipeline, CPU backend) ...", flush=True)
-    tpu = _make_tpu_tracker(calib, validity=PRESETS["demo1"].validity,
+    jt = _make_jax_tracker(calib, validity=PRESETS["demo1"].validity,
                             pipeline=pipeline)
-    s = getattr(tpu.params, "res_scale", 1) if hasattr(
-        tpu.params, "res_scale") else (2 if pipeline == "half" else 1)
+    s = getattr(jt.params, "res_scale", 1) if hasattr(
+        jt.params, "res_scale") else (2 if pipeline == "half" else 1)
     my_valid, my_left, my_right = [], [], []
     buf = []
     for t, frame in seq(n_frames):
         buf.append(frame)
         if len(buf) == chunk or t == n_frames - 1:
-            outs = tpu.process_chunk(np.stack(buf), with_overlay=False,
+            outs = jt.process_chunk(np.stack(buf), with_overlay=False,
                                      **DEMO1_KW)
             my_valid.extend(bool(v) for v in np.asarray(outs.valid))
             for lc, rc in zip(np.asarray(outs.left_coeffs, float),
@@ -117,7 +117,7 @@ def main(argv):
                 my_right.append(rc)
             buf = []
             print(f"  {pipeline} {t + 1}/{n_frames}", flush=True)
-    my_ratio = tuple(int(v) for v in tpu.get_success_ratio()[1:])
+    my_ratio = tuple(int(v) for v in jt.get_success_ratio()[1:])
 
     vm = [i for i, (a, b) in enumerate(zip(my_valid, ref_valid)) if a != b]
     yy = np.arange(1100, dtype=float)

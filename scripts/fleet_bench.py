@@ -1,23 +1,22 @@
-"""Fleet-mode throughput on one chip: S concurrent streams, two-phase
-conditional second attempt (round-2 verdict item 2; failure-bearing
-variants round-4 item 5).
+"""Fleet-mode throughput on one device: S concurrent streams, two-phase
+conditional second attempt.
 
-Round 1 measured 148 fps aggregate (vs 380 single-stream) because the
-scanned second-attempt lax.cond became an executed-both-sides O(H*W)
-re-filter under vmap.  Round 3's two-phase design scans attempt-1 only
-and pays ONE chip-level batched fallback when some local frame failed.
-This bench measures the steady state AND the failure-bearing regimes:
+The two-phase design scans attempt-1 only and pays ONE device-level
+batched fallback when some local frame failed (a scanned second-attempt
+lax.cond would become an executed-both-sides O(H*W) re-filter under
+vmap).  This bench measures the steady state AND the failure-bearing
+regimes:
 
   all_valid     every frame tracks; the conditional fallback never fires
   fail16        every 16th frame of ONE stream blacked — the cheapest
-                failure still poisons the chip's whole local batch
+                failure still poisons the device's whole local batch
   fail16_all    every 16th frame of EVERY stream blacked
   dead_stream   one stream fully black (a dead camera), others valid
 
 Each config runs under both second-attempt schedules ('two_phase' and
 the unconditional 'hoist') so the crossover is measured, not reasoned
 about.  Results print as one JSON line per (config, schedule) and are
-appended to FLEET_BENCH.json at the repo root (the committed artifact).
+appended to FLEET_BENCH.json at the repo root.
 
 Usage: nohup python scripts/fleet_bench.py [S T ...] > /tmp/fleet.log &
 """

@@ -12,9 +12,9 @@ ratio.
 
 Every frame is unique, so the reference's filter memoization does not
 apply: expect ~200 ms/frame on the reference side and ~1-2 s/frame for
-the repo's XLA chain on the CPU backend (~30-40 min total).  Results are
-recorded in docs/PERFORMANCE.md; tests/test_longrun.py runs a short
-segment of the same generator as a -m slow test.
+the repo's XLA chain on the CPU backend (~30-40 min total).
+tests/test_longrun.py runs a short segment of the same generator as a
+-m slow test.
 
 Usage: nohup python scripts/motion_longrun.py [n_frames] > /tmp/motion.log &
 """
@@ -120,7 +120,7 @@ def main(n_frames=1200, chunk=50, sequence=motion_sequence):
         DEMO1_KW,
         _band_patch,
         _make_ref_tracker,
-        _make_tpu_tracker,
+        _make_jax_tracker,
         _numpy_2017_shims,
     )
 
@@ -155,7 +155,7 @@ def main(n_frames=1200, chunk=50, sequence=motion_sequence):
     ref_ratio = tuple(ref.get_success_ratio()[1:])
 
     print("repo side (chunked fast pipeline, CPU backend) ...", flush=True)
-    tpu = _make_tpu_tracker(calib, validity=PRESETS["demo1"].validity,
+    jt = _make_jax_tracker(calib, validity=PRESETS["demo1"].validity,
                             pipeline="fast")
     my_valid, my_detected = [], []
     buf = []
@@ -165,14 +165,14 @@ def main(n_frames=1200, chunk=50, sequence=motion_sequence):
     for t, frame in sequence(n_frames):
         buf.append(frame)
         if len(buf) == chunk or t == n_frames - 1:
-            outs = tpu.process_chunk(np.stack(buf), with_overlay=False,
+            outs = jt.process_chunk(np.stack(buf), with_overlay=False,
                                      **DEMO1_KW)
             my_valid.extend(bool(v) for v in np.asarray(outs.valid))
             my_detected.extend(bool(v) for v in np.asarray(outs.detected))
             buf = []
             print(f"  repo {t + 1}/{n_frames} "
                   f"({(t + 1) / (time.time() - t0):.2f} fps)", flush=True)
-    my_ratio = tuple(int(v) for v in tpu.get_success_ratio()[1:])
+    my_ratio = tuple(int(v) for v in jt.get_success_ratio()[1:])
 
     vm = [i for i, (a, b) in enumerate(zip(my_valid, ref_valid)) if a != b]
     dm = [i for i, (a, b) in enumerate(zip(my_detected, ref_detected))

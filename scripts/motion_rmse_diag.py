@@ -3,8 +3,7 @@
 The BENCH_MOTION=1 run gated 512 frames against the live reference's
 trace: validity decisions bit-identical, rmse_px_mean 0.0026 — but
 rmse_px_max 0.7572 on a single frame (t=8).  This script decomposes
-that frame against the live reference, hypothesis by hypothesis
-(findings written up in docs/PERFORMANCE.md "The motion outlier"):
+that frame against the live reference, hypothesis by hypothesis:
 
   python scripts/motion_rmse_diag.py [T]
     Rank frames by curve RMSE vs the oracle, then capture the

@@ -29,7 +29,7 @@ def main(n_frames=300, chunk=50):
         DEMO1_KW,
         _band_patch,
         _make_ref_tracker,
-        _make_tpu_tracker,
+        _make_jax_tracker,
         _numpy_2017_shims,
     )
 
@@ -67,21 +67,21 @@ def main(n_frames=300, chunk=50):
     ref_ratio = tuple(ref.get_success_ratio()[1:])
 
     print("turbo side (chunked pipeline, CPU backend) ...", flush=True)
-    tpu = _make_tpu_tracker(calib, validity=PRESETS["demo1"].validity,
+    jt = _make_jax_tracker(calib, validity=PRESETS["demo1"].validity,
                             pipeline="turbo")
     my_valid, my_left, my_right = [], [], []
     buf = []
     for t, frame in motion_sequence(n_frames):
         buf.append(frame)
         if len(buf) == chunk or t == n_frames - 1:
-            outs = tpu.process_chunk(np.stack(buf), with_overlay=False,
+            outs = jt.process_chunk(np.stack(buf), with_overlay=False,
                                      **DEMO1_KW)
             my_valid.extend(bool(v) for v in np.asarray(outs.valid))
             my_left.extend(np.asarray(outs.left_coeffs, float))
             my_right.extend(np.asarray(outs.right_coeffs, float))
             buf = []
             print(f"  turbo {t + 1}/{n_frames}", flush=True)
-    my_ratio = tuple(int(v) for v in tpu.get_success_ratio()[1:])
+    my_ratio = tuple(int(v) for v in jt.get_success_ratio()[1:])
 
     vm = [i for i, (a, b) in enumerate(zip(my_valid, ref_valid)) if a != b]
     yy = np.arange(1100, dtype=float)

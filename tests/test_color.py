@@ -70,8 +70,8 @@ def test_lab_gamma_poly_exhaustive():
     """The fast path's polynomial gamma must reproduce the integer LUT
     EXACTLY on every reachable input, under jit on this backend (the
     LP-certified margin makes this FMA-contraction-proof; see
-    _gamma_poly).  scripts/zono_bench.py re-runs the same exhaustive
-    check on the real TPU."""
+    _gamma_poly).  tests/test_on_card.py runs the same exhaustive check
+    on a GPU."""
     import jax
     import jax.numpy as jnp
 

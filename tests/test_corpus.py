@@ -28,7 +28,7 @@ from tests.conftest import ASSETS_DIR, REFERENCE_DIR, requires_cv2
 from tests.test_tracker import (
     _band_patch,
     _make_ref_tracker,
-    _make_tpu_tracker,
+    _make_jax_tracker,
     _numpy_2017_shims,
     ref_process_module,  # noqa: F401  (fixture re-export)
 )
@@ -134,14 +134,14 @@ def test_corpus_sequence_parity(ref_process_module, calib, preset, pipeline):  #
     cfg = PRESETS[preset]
     ref_trace, ref_ratio = _ref_corpus_trace(ref_process_module, calib, preset)
 
-    tpu_lt = _make_tpu_tracker(calib, validity=cfg.validity, pipeline=pipeline)
+    jax_lt = _make_jax_tracker(calib, validity=cfg.validity, pipeline=pipeline)
 
     yy = np.arange(1100, dtype=float)
     saw_second_attempt_success = False
     for name, ref in zip(CORPUS, ref_trace):
         frame = np.asarray(Image.open(ASSETS_DIR / name).convert("RGB"))
-        tpu_lt.process(frame, **kw)
-        out = tpu_lt.last_output
+        jax_lt.process(frame, **kw)
+        out = jax_lt.last_output
 
         tag = f"{preset}/{pipeline}/{name}"
         assert bool(out.detected) == ref["detected"], tag
@@ -170,7 +170,7 @@ def test_corpus_sequence_parity(ref_process_module, calib, preset, pipeline):  #
                 assert kap_d < 2.5e-5, f"{tag}: curvature diff {kap_d}"
             assert abs(float(out.ecc) - ref["ecc"]) < 0.02, tag
 
-    assert tpu_lt.get_success_ratio()[1:] == ref_ratio
+    assert jax_lt.get_success_ratio()[1:] == ref_ratio
     if preset == "demo3":
         # The probe pinned test4/frame971 as second-attempt successes in
         # this sequence; the corpus must keep exercising that path.

@@ -2,52 +2,19 @@
 the column analogue of the row ROI, tracker/step._roi_grids).
 
 Exactness structure: the kept columns' warped channels are bit-identical
-to 'fast' (host-side grid cropping), the prefix re-embedding is exact by
-construction (tested below), and on content whose lane pixels sit inside
-the corridor the full decision trace matches 'fast' exactly.  The
-content-dependent deviations (candidate pixels outside [x0, x1), edge
-halos) are measured in scripts/approx_quality.py / docs/PERFORMANCE.md.
+to 'fast' (host-side grid cropping), and on content whose lane pixels sit
+inside the corridor the full decision trace matches 'fast' exactly.  The
+per-frame ``corridor_ok`` certificate says when that holds.
 """
 
 import numpy as np
 import pytest
 
 import jax
-import jax.numpy as jnp
 
 from lane_tracker_tpu.calib.io import load_calibration_npz
-from lane_tracker_tpu.ops.integrals import RowPrefixes, build_row_prefixes
 from lane_tracker_tpu.tracker.config import PRESETS
-from lane_tracker_tpu.tracker.step import (
-    TrackerParams,
-    _embed_prefixes,
-    make_initial_state,
-)
-
-
-def test_embed_prefixes_exact():
-    """Compute-window packed prefixes rebased to full width must equal
-    prefixes built directly from the corridor-only zero-padded binary
-    (margin pixels dropped), for every interval read the search can
-    make."""
-    rng = np.random.default_rng(0)
-    H, W, x0, x1 = 16, 640, 192, 448
-    c0, c1 = x0 - 32, x1 + 32  # compute window: corridor + margin
-    comp = (rng.random((H, c1 - c0)) < 0.3).astype(np.uint8) * 255
-    full = np.zeros((H, W), np.uint8)
-    full[:, x0:x1] = comp[:, x0 - c0:x1 - c0]  # only corridor pixels kept
-
-    pref_comp = build_row_prefixes(jnp.asarray(comp))
-
-    class P:
-        col_roi = (x0, x1)
-        col_comp = (c0, c1)
-        warped_size = (W, H)
-
-    embedded = _embed_prefixes(pref_comp, P)
-    direct = build_row_prefixes(jnp.asarray(full))
-    np.testing.assert_array_equal(np.asarray(embedded.packed),
-                                  np.asarray(direct.packed))
+from lane_tracker_tpu.tracker.step import TrackerParams, make_initial_state
 
 
 def test_corridor_params_crop_grids():
@@ -78,15 +45,14 @@ def test_corridor_matches_fast_on_nominal_content():
     from lane_tracker_tpu.parallel.pipeline import chunk_process
 
     cam, warp = load_calibration_npz("assets/calibration.npz")
-    kw = dict(filter_backend="xla")
     p_fast = TrackerParams.build(
         cam.cam_matrix, cam.dist_coeffs, warp.M, warp.Minv,
         warp.image_width_height, warp.warped_width_height,
-        warp.mppv, warp.mpph, pipeline="fast", **kw)
+        warp.mppv, warp.mpph, pipeline="fast")
     p_cor = TrackerParams.build(
         cam.cam_matrix, cam.dist_coeffs, warp.M, warp.Minv,
         warp.image_width_height, warp.warped_width_height,
-        warp.mppv, warp.mpph, pipeline="corridor", **kw)
+        warp.mppv, warp.mpph, pipeline="corridor")
     config = PRESETS["demo1"]
 
     names = ["frame911.jpg", "frame971.jpg", "test4.jpg",
@@ -131,8 +97,7 @@ def test_corridor_certificate_flags_narrow_corridor():
     p = TrackerParams.build(
         cam.cam_matrix, cam.dist_coeffs, warp.M, warp.Minv,
         warp.image_width_height, warp.warped_width_height,
-        warp.mppv, warp.mpph, pipeline="corridor", col_roi=(430, 700),
-        filter_backend="xla")
+        warp.mppv, warp.mpph, pipeline="corridor", col_roi=(430, 700))
     config = PRESETS["demo1"]
     frames = np.stack([
         np.asarray(Image.open("assets/frame911.jpg").convert("RGB"))])

@@ -4,11 +4,11 @@ the reduced-resolution filter/warp stage).
 Structure: 'half' is 'fast' run at a scaled calibration — M_h = S @ M
 with S the half-resolution pixel-center map, warped size halved, m/px
 doubled, px-denominated config knobs halved (config.halve_config), SE
-sizes odd-halved.  The kernels themselves are the production ones with
-parametrized SE sizes, so the bit-exactness obligations here are (1) the
-scaled-SE kernel paths vs the XLA ops and (2) the config scaling rules;
-the content-dependent resolution deviation is measured in
-scripts/approx_quality.py / APPROX_BENCH.json.
+sizes odd-halved.  The filter ops themselves are the production ones with
+parametrized SE sizes (pinned against cv2 at the 'half' sizes in
+tests/test_filters.py), so the obligations here are the config scaling
+rules; the content-dependent resolution deviation is measured by
+scripts/approx_quality.py.
 """
 
 import numpy as np
@@ -67,37 +67,18 @@ def test_half_params_geometry():
     assert p.mpph == pytest.approx(warp.mpph * 2)
 
 
-def test_scaled_se_kernels_bit_exact():
-    """The parametrized-SE Pallas stage (tophat 15/27, open 3 — the
-    'half' sizes) must stay bit-exact vs the XLA ops at those sizes."""
-    from lane_tracker_tpu.kernels.filter_stage2 import filter_stage_v2
-    from lane_tracker_tpu.ops.filters import filter_lane_points_channels
-
-    rng = np.random.default_rng(7)
-    r = rng.integers(0, 256, (160, 320), np.uint8)
-    b = rng.integers(0, 256, (160, 320), np.uint8)
-    kw = dict(ksize_r=13, C_r=8, ksize_b=17, C_b=5, mask_noise=True,
-              ksize_noise=33, C_noise=10, noise_thresh=135)
-    want = np.asarray(filter_lane_points_channels(
-        r, b, filter_type="bilateral", backend="xla",
-        tophat_r=15, tophat_b=27, open_k=3, **kw))
-    got = np.asarray(filter_stage_v2(
-        r, b, tophat_r=15, tophat_b=27, open_k=3, interpret=True, **kw))
-    np.testing.assert_array_equal(got, want)
-
-
 @pytest.mark.slow
 def test_half_tracks_near_fast():
     """End-to-end: 'half' must track the warm-start pair (valid both
     frames) with fitted curves near 'fast' after rescaling to full-res
     warped coordinates.  The tight quality budget is measured content-
-    wide in APPROX_BENCH.json; this pins the wiring (config halving,
+    wide by scripts/approx_quality.py; this pins the wiring (config halving,
     scaled second attempt, coefficient spaces)."""
     from PIL import Image
 
     import lane_tracker_tpu as lt
     from scripts.approx_quality import rescale_coeffs
-    from tests.test_tracker import DEMO1_KW, _make_tpu_tracker
+    from tests.test_tracker import DEMO1_KW, _make_jax_tracker
 
     calib = load_calibration_npz("assets/calibration.npz")
     frames = [np.asarray(Image.open(f"assets/{n}").convert("RGB"))
@@ -105,7 +86,7 @@ def test_half_tracks_near_fast():
 
     coeffs = {}
     for pipeline in ("fast", "half"):
-        t = _make_tpu_tracker(calib, validity=lt.PRESETS["demo1"].validity,
+        t = _make_jax_tracker(calib, validity=lt.PRESETS["demo1"].validity,
                               pipeline=pipeline)
         for f in frames:
             t.process(f, **DEMO1_KW)

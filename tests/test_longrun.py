@@ -209,11 +209,11 @@ def test_motion_segment_parity(ref_process_module, calib, generator):  # noqa: F
     time-varying quadratic shear, so the fitted polynomial DRIFTS across
     the warm frames — the momentum/bandwidth regime rigid jitter cannot
     reach.  Full 1,200-frame versions: scripts/motion_longrun.py
-    [--curve] (results recorded in docs/PERFORMANCE.md)."""
+    [--curve]."""
     import importlib.util
     import pathlib
 
-    from tests.test_tracker import DEMO1_KW, _make_ref_tracker, _make_tpu_tracker
+    from tests.test_tracker import DEMO1_KW, _make_ref_tracker, _make_jax_tracker
 
     spec = importlib.util.spec_from_file_location(
         "motion_longrun",
@@ -236,16 +236,16 @@ def test_motion_segment_parity(ref_process_module, calib, generator):  # noqa: F
             if ref_valid[-1]:
                 ref_quad.append(float(ref_lt.last_left_coeffs[0]))
 
-    tpu = _make_tpu_tracker(calib, validity=PRESETS["demo1"].validity,
+    jt = _make_jax_tracker(calib, validity=PRESETS["demo1"].validity,
                             pipeline="fast")
     frames = np.stack([f for _, f in sequence(n)])
-    outs = tpu.process_chunk(frames, with_overlay=False, **DEMO1_KW)
+    outs = jt.process_chunk(frames, with_overlay=False, **DEMO1_KW)
     my_valid = [bool(v) for v in np.asarray(outs.valid)]
     my_detected = [bool(v) for v in np.asarray(outs.detected)]
 
     assert my_valid == ref_valid
     assert my_detected == ref_detected
-    assert tuple(int(v) for v in tpu.get_success_ratio()[1:]) == tuple(
+    assert tuple(int(v) for v in jt.get_success_ratio()[1:]) == tuple(
         ref_lt.get_success_ratio()[1:])
     # The segment must actually run warm (band search on moving content).
     assert sum(ref_valid[1:]) >= n // 2

@@ -299,12 +299,11 @@ def test_fleet_auto_schedule_flips_at_crossover(tiny):
 
 
 def test_fleet_auto_observable_is_any_over_chips(tiny):
-    """The psum lockstep makes a step's cost the MAX over chips, so the
-    poisoned-step indicator is any-over-chips: one dead stream of eight
-    poisons EVERY step and must flip to hoist (FLEET_BENCH.json
-    dead_stream: hoist 808-810 fps vs two_phase 774), while failures
+    """The psum lockstep makes a step's cost the MAX over devices, so the
+    poisoned-step indicator is any-over-devices: one dead stream of
+    eight poisons EVERY step and must flip to hoist, while failures
     intermittent in TIME below the 0.81 crossover must hold two_phase
-    (the clean steps' 0.987 ms rate dominates)."""
+    (the clean steps' rate dominates)."""
     import types
 
     params, config = tiny

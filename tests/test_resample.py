@@ -157,7 +157,7 @@ def test_bilinear_gather_pair_matches_single():
 
 
 def test_rowmm_taps_bit_exact_vs_gather(calib):
-    """The tile-structured (slab + one-hot MXU) resampler must be
+    """The tile-structured (slab + one-hot matmul) resampler must be
     bit-identical to the per-pixel gather on BOTH production grids —
     it exists purely as a faster tap-fetch strategy for unbatched
     frames (kernels/resample_rowmm.py; round-5 latency mode)."""

@@ -68,7 +68,7 @@ def _make_ref_tracker(ref_process_module, calib, **kw):
     )
 
 
-def _make_tpu_tracker(calib, validity=None, pipeline="compat"):
+def _make_jax_tracker(calib, validity=None, pipeline="compat"):
     cam, warp = calib
     return LaneTracker(
         warp.image_width_height,
@@ -124,22 +124,22 @@ def test_tracker_matches_reference_process(ref_process_module, calib, order):
 
     ref_lt = _make_ref_tracker(ref_process_module, calib)
     _band_patch(ref_lt)
-    tpu_lt = _make_tpu_tracker(calib, validity=PRESETS["demo1"].validity,
+    jax_lt = _make_jax_tracker(calib, validity=PRESETS["demo1"].validity,
                                pipeline="compat")
 
     # Apply demo1 validity thresholds to the reference via check_validity
     # monkeypatching is impossible (hardcoded constants) — instead compare
     # under the committed thresholds for both.
-    tpu_lt2 = _make_tpu_tracker(calib, pipeline="compat")
+    jax_lt2 = _make_jax_tracker(calib, pipeline="compat")
 
     H = 1100
     for name in order:
         frame = np.asarray(Image.open(ASSETS_DIR / name).convert("RGB"))
         with _numpy_2017_shims():
             ref_out = ref_lt.process(np.copy(frame), **DEMO1_KW)
-        tpu_out = tpu_lt2.process(frame, **DEMO1_KW)
-        assert tpu_out.shape == ref_out.shape == frame.shape
-        out = tpu_lt2.last_output
+        jax_out = jax_lt2.process(frame, **DEMO1_KW)
+        assert jax_out.shape == ref_out.shape == frame.shape
+        out = jax_lt2.last_output
 
         # Reference state vs ours
         assert bool(out.detected) == bool(ref_lt.detected_pixels)
@@ -159,29 +159,29 @@ def test_tracker_matches_reference_process(ref_process_module, calib, order):
             )
             assert abs(float(out.ecc) - ref_lt.eccentricity) < 0.02
 
-    assert tpu_lt2.get_success_ratio()[1:] == ref_lt.get_success_ratio()[1:]
+    assert jax_lt2.get_success_ratio()[1:] == ref_lt.get_success_ratio()[1:]
 
 
 def test_tracker_failure_grace_and_reset(calib):
     """Failure path state machine: grace-period rendering then failure
     message, and band -> sliding-window reset after n_reset misses."""
-    tpu_lt = _make_tpu_tracker(calib, validity=PRESETS["demo1"].validity)
+    jax_lt = _make_jax_tracker(calib, validity=PRESETS["demo1"].validity)
     from PIL import Image
     from tests.conftest import ASSETS_DIR
 
     good = np.asarray(Image.open(ASSETS_DIR / "frame911.jpg").convert("RGB"))
     black = np.zeros_like(good)
 
-    out1 = tpu_lt.process(good, **DEMO1_KW)
-    first_valid = bool(tpu_lt.last_output.valid)
+    out1 = jax_lt.process(good, **DEMO1_KW)
+    first_valid = bool(jax_lt.last_output.valid)
     assert first_valid
-    assert int(tpu_lt.last_output.search_mode) == 0  # first frame: sliding
+    assert int(jax_lt.last_output.search_mode) == 0  # first frame: sliding
 
     # Feed black frames: no pixels -> invalid; previous lane rendered for
     # n_fail frames, then the failure message.
     for i in range(1, 10):
-        tpu_lt.process(black, **DEMO1_KW)
-        out = tpu_lt.last_output
+        jax_lt.process(black, **DEMO1_KW)
+        out = jax_lt.last_output
         assert not bool(out.valid)
         # Mode select reads last_detection at frame entry (pre-increment):
         # band while entry value i-1 <= n_reset=4, i.e. through i=5.
@@ -194,7 +194,7 @@ def test_tracker_failure_grace_and_reset(calib):
         else:
             assert int(out.render_mode) == 1
 
-    ratio, succ, cnt = tpu_lt.get_success_ratio()
+    ratio, succ, cnt = jax_lt.get_success_ratio()
     assert (succ, cnt) == (1, 10)
 
 
@@ -203,11 +203,11 @@ def test_tracker_state_snapshot_roundtrip(calib, tmp_path):
     from tests.conftest import ASSETS_DIR
 
     frame = np.asarray(Image.open(ASSETS_DIR / "frame911.jpg").convert("RGB"))
-    lt1 = _make_tpu_tracker(calib, validity=PRESETS["demo1"].validity)
+    lt1 = _make_jax_tracker(calib, validity=PRESETS["demo1"].validity)
     lt1.process(frame, **DEMO1_KW)
     lt1.save_state(tmp_path / "state.npz")
 
-    lt2 = _make_tpu_tracker(calib, validity=PRESETS["demo1"].validity)
+    lt2 = _make_jax_tracker(calib, validity=PRESETS["demo1"].validity)
     lt2.load_state(tmp_path / "state.npz")
     # Continuing from the snapshot must give the same result as continuing
     # the original tracker.
@@ -240,7 +240,7 @@ def test_tracker_multi_frame_trajectory_parity(ref_process_module, calib):
         )
 
     ref_lt.check_validity = types.MethodType(check_validity, ref_lt)
-    tpu_lt = _make_tpu_tracker(calib, validity=v, pipeline="compat")
+    jax_lt = _make_jax_tracker(calib, validity=v, pipeline="compat")
 
     f911 = np.asarray(Image.open(ASSETS_DIR / "frame911.jpg").convert("RGB"))
     f971 = np.asarray(Image.open(ASSETS_DIR / "frame971.jpg").convert("RGB"))
@@ -249,8 +249,8 @@ def test_tracker_multi_frame_trajectory_parity(ref_process_module, calib):
     for i, frame in enumerate(frames):
         with _numpy_2017_shims():
             ref_lt.process(np.copy(frame), **DEMO1_KW)
-        tpu_lt.process(frame, **DEMO1_KW)
-        out = tpu_lt.last_output
+        jax_lt.process(frame, **DEMO1_KW)
+        out = jax_lt.last_output
         assert bool(out.valid) == bool(ref_lt.valid_lane_lines), f"frame {i}"
         if bool(out.valid):
             for mine, ref in (
@@ -261,7 +261,7 @@ def test_tracker_multi_frame_trajectory_parity(ref_process_module, calib):
                     np.mean((np.polyval(mine, yy) - np.polyval(ref, yy)) ** 2)
                 )
                 assert rmse < 0.5, f"frame {i}: curve RMSE {rmse}"
-    assert tpu_lt.get_success_ratio()[1:] == ref_lt.get_success_ratio()[1:]
+    assert jax_lt.get_success_ratio()[1:] == ref_lt.get_success_ratio()[1:]
 
 
 def test_process_chunk_matches_process(calib):
@@ -274,9 +274,9 @@ def test_process_chunk_matches_process(calib):
 
     kw = dict(mask_noise=True, noise_thresh=140, no_success_limit=50,
               bandwidth=30, ksize_r=15)
-    lt_seq = _make_tpu_tracker(calib, validity=PRESETS["demo1"].validity,
+    lt_seq = _make_jax_tracker(calib, validity=PRESETS["demo1"].validity,
                                pipeline="fast")
-    lt_chunk = _make_tpu_tracker(calib, validity=PRESETS["demo1"].validity,
+    lt_chunk = _make_jax_tracker(calib, validity=PRESETS["demo1"].validity,
                                  pipeline="fast")
 
     f911 = np.asarray(Image.open(ASSETS_DIR / "frame911.jpg").convert("RGB"))
@@ -305,7 +305,7 @@ def test_process_chunk_matches_process(calib):
     assert lt_chunk.get_success_ratio() == lt_seq.get_success_ratio()
     # Overlays match the per-frame path bit-exactly.
     ov_first = np.asarray(outs.overlay[0])
-    lt_ref = _make_tpu_tracker(calib, validity=PRESETS["demo1"].validity,
+    lt_ref = _make_jax_tracker(calib, validity=PRESETS["demo1"].validity,
                                pipeline="fast")
     lt_ref.process(frames[0], **kw)
     np.testing.assert_array_equal(
@@ -391,7 +391,7 @@ def test_diagnostics_transcript_matches_reference(ref_process_module, calib):
     ref_lt = _make_ref_tracker(ref_process_module, calib)
     _band_patch(ref_lt)
     ref_lt.check_validity = types.MethodType(patched_check_validity, ref_lt)
-    tpu_lt = _make_tpu_tracker(calib, validity=cfg.validity,
+    jax_lt = _make_jax_tracker(calib, validity=cfg.validity,
                                pipeline="compat")
 
     seq = ["frame911.jpg", "frame971.jpg", "black", "test1.jpg"]
@@ -401,18 +401,18 @@ def test_diagnostics_transcript_matches_reference(ref_process_module, calib):
         for name in seq
     }
 
-    ref_log, tpu_log = io.StringIO(), io.StringIO()
+    ref_log, jax_log = io.StringIO(), io.StringIO()
     kw = dict(DEMO1_KW)
     for name in seq:
         with _numpy_2017_shims(), redirect_stdout(ref_log):
             ref_lt.process(np.copy(frames[name]), diagnostics=True, **kw)
-        with redirect_stdout(tpu_log):
-            tpu_lt.process(frames[name], diagnostics=True, **kw)
+        with redirect_stdout(jax_log):
+            jax_lt.process(frames[name], diagnostics=True, **kw)
 
     ref_lines = ref_log.getvalue().strip().splitlines()
-    tpu_lines = tpu_log.getvalue().strip().splitlines()
-    assert len(ref_lines) == len(tpu_lines), (ref_lines, tpu_lines)
-    for rl, tl in zip(ref_lines, tpu_lines):
+    jax_lines = jax_log.getvalue().strip().splitlines()
+    assert len(ref_lines) == len(jax_lines), (ref_lines, jax_lines)
+    for rl, tl in zip(ref_lines, jax_lines):
         rt, rn = _split_numbers(rl)
         tt, tn = _split_numbers(tl)
         assert rt == tt, (rl, tl)

@@ -2,10 +2,8 @@
 
 'turbo' reorders the reference's warp->LAB chain (LAB-B computed on the
 undistorted band, then warped as a channel with the out-of-image fill
-bias) for one fewer packed take and a 4x smaller LAB — measured
-+13.6% fps (1,248.5 fps, T=512) vs the live reference
-(docs/PERFORMANCE.md "measured approximations"; scripts/turbo_quality.py).
-It FAILS the 0.5 px max north-star budget (stills rmse max 1.36 px;
+bias) for one fewer packed take and a 4x smaller LAB, measured against
+the live reference by scripts/turbo_quality.py.  It FAILS the 0.5 px max north-star budget (stills rmse max 1.36 px;
 4.62 px over the 300-frame motion run — with ZERO validity-trace flips
 in both), so it is not the headline — these tests pin the plumbing
 contracts that make its measured quality reproducible, not reference
